@@ -1,5 +1,5 @@
 # Local automation gate — `make check` is the pre-commit bar (a red suite
-# must not be committed; VERDICT round 1).  CI (.github/workflows/ci.yml)
+# must not be committed).  CI (.github/workflows/ci.yml)
 # runs the same targets.
 
 PY ?= python

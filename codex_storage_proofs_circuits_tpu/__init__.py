@@ -1,6 +1,6 @@
-"""codex_storage_proofs_circuits_tpu — a TPU-native storage-proof primitive library.
+"""codex_storage_proofs_circuits_tpu — a storage-proof primitive library in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 codex-storage/codex-storage-proofs-circuits reference system:
 
   * BN254 scalar-field (Fr) arithmetic as multi-limb integer kernels
@@ -9,11 +9,13 @@ codex-storage/codex-storage-proofs-circuits reference system:
   * storage-proof sampling and circuit proof-input generation
   * witness generation / constraint evaluation for the sampling circuit
 
-Layer map (mirrors reference SURVEY.md section 1, re-designed TPU-first):
+Layer map (mirrors reference SURVEY.md section 1, re-designed for batched
+device execution):
 
   fields/    L0  field constants + scalar reference arithmetic
   oracle/    L1-L4 bit-exact pure-Python CPU oracle (the judge for kernels)
-  ops/       L1-L2 batched TPU kernels (jnp limb planes + Pallas)
+  ops/       L1-L2 batched kernels: jnp limb planes, a Pallas-Triton PRNG,
+             CUDA hash kernels (ops/routes.py picks per backend)
   models/    L3-L6 jitted pipelines: slot trees, dataset trees, sampling,
              proof inputs, circuit semantics evaluation
   parallel/  multi-chip sharding: mesh, shard_map tree builds, collectives

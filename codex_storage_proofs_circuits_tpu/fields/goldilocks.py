@@ -40,7 +40,7 @@ their published canonical specifications:
     CIRC = [17,15,41,16,2,28,13,13,39,18,34,20], DIAG = [8,0,...,0].
 
 Everything downstream (oracle/goldilocks.py, ops/goldilocks_jnp.py,
-ops/goldilocks_pallas.py, native/cspc_gl.c via tools/gen_gl_c_constants.py)
+ops/cuda/lanes.h and native/cspc_gl.c via tools/gen_gl_c_constants.py)
 is table-driven from this module.
 """
 

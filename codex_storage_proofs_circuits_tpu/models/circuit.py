@@ -20,7 +20,7 @@ merkle.circom:44-114) against a generated ProofInput — i.e. re-derives every
 Two implementations with identical verdicts: a scalar host checker
 (check_circuit_semantics) and a batched device evaluator
 (verify_proof_input_device) that walks every sample's Merkle path in one
-lax.scan of keyed compressions — witness checking as a TPU pipeline stage.
+lax.scan of keyed compressions — witness checking as a device pipeline stage.
 """
 
 from __future__ import annotations

@@ -21,64 +21,31 @@ from ..oracle.slot import SlotConfig, SlotTree
 from ..oracle.merkle import MerkleTree
 from ..oracle.goldilocks import CHUNK_BYTES_GL
 from ..ops import goldilocks_jnp as GJ
-from ..ops import goldilocks_pallas as GP
+from ..ops import cuda_ffi, routes
 from . import data as D
 
 NL = GJ.NL  # 4 x 16-bit limbs per felt
 FELTS_PER_DIGEST = 4
 
-# Batches at/above this route through the fused Pallas kernel on TPU,
-# padded up to a tile multiple (pad lanes hash garbage that is sliced off).
-_PALLAS_MIN_BATCH = GP.DEFAULT_TILE
 
-
-def _use_pallas(hash_fun: str, b: int) -> bool:
-    return (
-        hash_fun in ("poseidon2", "monolith")
-        and b >= _PALLAS_MIN_BATCH
-        and jax.default_backend() == "tpu"
-    )
-
-
-# Narrow compressions (upper tree layers) also route through the kernel on
-# TPU, padded up to one tile: a grid-1 pallas call costs ~0.1 ms while the
-# jnp fallback pays >1 ms per 30-round graph — the narrow tail of a chunk's
-# tree reduce was most of its device time (tools/profile_stages.py).
-def _use_pallas_padded(hash_fun: str, b: int) -> bool:
-    return (
-        hash_fun in ("poseidon2", "monolith")
-        and jax.default_backend() == "tpu"
-    )
-
-
-def _pad_lanes(arr: jnp.ndarray, mult: int) -> tuple[jnp.ndarray, int]:
-    b = arr.shape[-1]
-    pad = (-b) % mult
-    if pad:
-        arr = jnp.concatenate(
-            [arr, jnp.zeros(arr.shape[:-1] + (pad,), arr.dtype)], axis=-1
-        )
-    return arr, b
+def _kernel() -> bool:
+    """True where the Goldilocks family runs the CUDA kernels (ops/routes.py)."""
+    return routes.route("gl") == "cuda"
 
 
 def sponge_digests(hash_fun: str, felts: jnp.ndarray) -> jnp.ndarray:
-    """(n, 4, B) felts -> (4, 4, B) digests via the best available path."""
-    b = felts.shape[-1]
-    if _use_pallas(hash_fun, b):
-        padded, b0 = _pad_lanes(felts, GP.DEFAULT_TILE)
-        return GP.sponge_digest_felts(padded, hash_fun=hash_fun)[:, :, :b0]
+    """(n, 4, B) felts -> (4, 4, B) digests, by the family's route."""
+    if _kernel():
+        return cuda_ffi.gl_sponge(hash_fun, felts)
     return GJ.sponge_digest_felts(hash_fun, felts)
 
 
 def compress_digests(
     hash_fun: str, key: int, x: jnp.ndarray, y: jnp.ndarray
 ) -> jnp.ndarray:
-    """Keyed digest compression via the best available path."""
-    b = x.shape[-1]
-    if _use_pallas_padded(hash_fun, b):
-        xp, b0 = _pad_lanes(x, GP.DEFAULT_TILE)
-        yp, _ = _pad_lanes(y, GP.DEFAULT_TILE)
-        return GP.compress(xp, yp, key, hash_fun=hash_fun)[:, :, :b0]
+    """Keyed digest compression, by the family's route."""
+    if _kernel():
+        return cuda_ffi.gl_compress(hash_fun, key, x, y)
     return GJ.compress_batch(hash_fun, key, x, y)
 
 

@@ -23,7 +23,7 @@ from ..oracle.slot import load_cell
 from .gl_hashing import build_slot_trees_gl
 
 
-def generate_proof_input_gl_tpu(
+def generate_proof_input_gl_device(
     hash_fun: str,
     glob: GlobalConfig,
     dset: DataSetConfig,

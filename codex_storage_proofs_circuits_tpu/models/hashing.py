@@ -19,44 +19,35 @@ import jax.numpy as jnp
 from ..ops import limbs as L
 from ..ops import encode
 from ..ops import poseidon2_jnp as P2
-from ..ops import poseidon2_pallas as P2K
+from ..ops import cuda_ffi, routes
 
 NL = L.NL
 
-# Batch widths below this use the jnp permutation; at/above it the fused
-# Pallas kernel (TPU only).  The kernel tiles the batch at 512 lanes.
-_PALLAS_MIN_BATCH = 512
 
-
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def _pad_lanes(arr: jnp.ndarray, mult: int) -> tuple[jnp.ndarray, int]:
-    """Pad the trailing (batch) axis up to a multiple of `mult` with zeros
-    (valid field elements that hash to garbage and are sliced off)."""
-    b = arr.shape[-1]
-    pad = (-b) % mult
-    if pad:
-        arr = jnp.concatenate(
-            [arr, jnp.zeros(arr.shape[:-1] + (pad,), arr.dtype)], axis=-1
-        )
-    return arr, b
+def _kernel() -> bool:
+    """True where the BN254 family runs the CUDA kernels (ops/routes.py)."""
+    return routes.route("bn254") == "cuda"
 
 
 def permute(state: jnp.ndarray) -> jnp.ndarray:
-    """(3, NL, B) Montgomery batch -> permuted, via the best available path.
-
-    B is static under jit, so dispatch resolves at trace time.  Batches of
-    at least the tile width route through the fused Pallas kernel, padded
-    up to a tile multiple (round-1 review: the kernel was only used for
-    exact multiples, so the product path never hit it).
-    """
-    b = state.shape[2]
-    if _use_pallas() and b >= _PALLAS_MIN_BATCH:
-        padded, b0 = _pad_lanes(state, _PALLAS_MIN_BATCH)
-        return P2K.permutation(padded, batch_tile=_PALLAS_MIN_BATCH)[:, :, :b0]
+    """(3, NL, B) Montgomery batch -> permuted, by the family's route."""
+    if _kernel():
+        return cuda_ffi.bn254_permute(state)
     return P2.permutation(state)
+
+
+def to_mont(x: jnp.ndarray) -> jnp.ndarray:
+    """(NL, B) canonical -> Montgomery form, by the family's route."""
+    if _kernel():
+        return cuda_ffi.bn254_mont(x, to=True)
+    return L.to_mont(x)
+
+
+def from_mont(x: jnp.ndarray) -> jnp.ndarray:
+    """(NL, B) Montgomery -> canonical form, by the family's route."""
+    if _kernel():
+        return cuda_ffi.bn254_mont(x, to=False)
+    return L.from_mont(x)
 
 
 def compress_layer(x: jnp.ndarray, y: jnp.ndarray, key: int) -> jnp.ndarray:
@@ -67,17 +58,11 @@ def compress_layer(x: jnp.ndarray, y: jnp.ndarray, key: int) -> jnp.ndarray:
 
 
 def sponge2_scan(blocks: jnp.ndarray) -> jnp.ndarray:
-    """Rate-2 sponge over pre-padded (nblocks, 2, NL, B) Montgomery blocks.
-
-    Same semantics as ops.poseidon2_jnp.sponge2_absorb; on TPU the whole
-    absorb chain runs as ONE fused Pallas kernel (state loose in VMEM, no
-    HBM round-trips between permutations).
+    """Rate-2 sponge over pre-padded (nblocks, 2, NL, B) Montgomery blocks
+    (semantics of ops.poseidon2_jnp.sponge2_absorb), one permute per block.
     """
     nb, two, nl, b = blocks.shape
     assert two == 2 and nl == NL
-    if _use_pallas() and b >= _PALLAS_MIN_BATCH and P2K.sponge2_fits(nb):
-        padded, b0 = _pad_lanes(blocks, _PALLAS_MIN_BATCH)
-        return P2K.sponge2_absorb(padded, batch_tile=_PALLAS_MIN_BATCH)[:, :b0]
     iv = jnp.broadcast_to(jnp.asarray(P2.SPONGE2_IV_MONT), (NL, b)).astype(jnp.uint32)
     zero = jnp.zeros((NL, b), jnp.uint32)
     state = jnp.stack([zero, zero, iv])
@@ -104,8 +89,9 @@ def hash_cells_mont(cells_felts: jnp.ndarray) -> jnp.ndarray:
     """(nfelts, NL, B) canonical felts (byte-encoded cells) -> (NL, B)
     Montgomery cell hashes (rate-2 sponge with felt `10*` padding).
     """
-    mont = to_mont_stack(cells_felts)
-    return sponge2_scan(P2.pad_felts_rate2(mont))
+    if _kernel():
+        return cuda_ffi.bn254_sponge(cells_felts)
+    return sponge2_scan(P2.pad_felts_rate2(to_mont_stack(cells_felts)))
 
 
 def encode_and_hash_cells(cells_u8: np.ndarray) -> jnp.ndarray:
@@ -131,19 +117,9 @@ def _tail_reduce_scan(
     )  # (n_steps, NL, 1)
     keys = jnp.asarray(np.broadcast_to(keys_np, (n_steps, NL, half)).copy())
 
-    # On TPU, run the narrow steps through the fused kernel padded up to one
-    # tile: a 512-lane pallas step costs ~0.1 ms while the jnp fallback's
-    # 64-round graph costs >1 ms per step — at 9 tail steps per chunk that
-    # was most of the tree-reduce time (tools/profile_stages.py).
-    pad_tail = _use_pallas() and half < _PALLAS_MIN_BATCH
-
     def body(cur, key):
         trip = jnp.stack([cur[:, 0::2], cur[:, 1::2], key])
-        if pad_tail:
-            padded, _ = _pad_lanes(trip, _PALLAS_MIN_BATCH)
-            out = P2K.permutation(padded, batch_tile=_PALLAS_MIN_BATCH)[0][:, :half]
-        else:
-            out = permute(trip)[0]  # (NL, half)
+        out = permute(trip)[0]  # (NL, half)
         nxt = jnp.concatenate([out, jnp.zeros((NL, t - half), jnp.uint32)], axis=1)
         return nxt, out
 
@@ -273,4 +249,4 @@ def slot_tree_from_felts(
     layers = tree_reduce_layers(
         hashes, bottom_depths=(0, block_tree_depth), stop_width=n_groups
     )
-    return [L.from_mont(lyr) for lyr in layers]
+    return [from_mont(lyr) for lyr in layers]

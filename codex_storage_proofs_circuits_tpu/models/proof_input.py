@@ -1,4 +1,4 @@
-"""TPU-backed proof-input generation (L4/L6 compute path).
+"""Device-backed proof-input generation (L4/L6 compute path).
 
 Same contract as oracle.sampling.generate_proof_input
 (reference/nim/proof_input/src/gen_input/bn254.nim:35-74, Sampling.hs:62-89)
@@ -20,7 +20,7 @@ from . import data as D
 from .slot_tree import build_slot_trees, extract_cell_proof
 
 
-def generate_proof_input_tpu(
+def generate_proof_input_device(
     glob: GlobalConfig,
     dset: DataSetConfig,
     slot_index: int,
@@ -68,8 +68,8 @@ def generate_proof_input_streaming(
     """Large-slot proof-input path: streaming chunked tree builds (bounded
     host memory, models/streaming.py) + one batched device path gather.
 
-    Identical output to generate_proof_input_tpu / the oracle; usable at
-    BASELINE.json scale (1 GB slots) where materializing every cell of
+    Identical output to generate_proof_input_device / the oracle; usable at
+    1 GB slots and beyond, where materializing every cell of
     every slot host-side (build_slot_trees) is not.  Non-sampled slots keep
     only their root; the sampled slot keeps its device layer stack for the
     path gather (~2 x 64 B x n_cells of device memory).

@@ -1,6 +1,6 @@
 """Device slot-tree construction + Merkle path extraction from stored layers.
 
-The TPU analogue of buildSlotTreeFull (reference/nim/proof_input/src/
+The batched device analogue of buildSlotTreeFull (reference/nim/proof_input/src/
 gen_input/bn254.nim:21-30): bytes -> 31-byte LE felts -> rate-2 cell hashes
 -> depth-b block mini-trees -> slot tree, all as one jitted batched program.
 Unlike the reference, trees are built ONCE and their layers kept for path

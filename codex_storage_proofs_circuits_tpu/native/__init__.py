@@ -1,14 +1,14 @@
 """native — ctypes bindings for the C host library (libcspc_native).
 
-The C library is the TPU framework's host-side runtime: a multi-threaded,
+The C library is the framework's host-side runtime: a multi-threaded,
 bit-exact CPU implementation of the math the reference delegates to its
 pinned native dependencies (constantine / nim-poseidon2,
 reference/nim/proof_input/proof_input.nimble:11-13).  It serves as
 
-  * a fast CPU oracle for verifying the TPU kernels,
+  * a fast CPU oracle for verifying the device kernels,
   * the `--backend=native` compute path of the CLI, and
   * the host half of mixed pipelines (data generation + path extraction
-    while the TPU hashes).
+    while the device hashes).
 
 The shared object is compiled on first use with the system C compiler and
 cached next to this file; `available()` reports whether that worked.

@@ -1,6 +1,5 @@
 """Vectorized Goldilocks field + Poseidon2-GL round primitives on limb
-planes — shared by the fused Pallas kernel (ops/goldilocks_pallas.py) and
-the portable jnp path (ops/goldilocks_jnp.py).
+planes, the building blocks of the portable jnp path (ops/goldilocks_jnp.py).
 
 A felt batch is `f4 = [L0, L1, L2, L3]`: four (R, B) uint32 planes of
 little-endian 16-bit limbs, R = number of independent lanes (12 for a full
@@ -11,7 +10,7 @@ folds to a loose value via 2^64 ≡ 2^32 - 1, 2^96 ≡ -1.
 
 Keeping every op a whole-plane elementwise u32 instruction (no per-lane
 Python lists, no broadcasts in the product) is what makes this both
-VPU-fast inside the Pallas kernel and ~12x smaller as a traced jaxpr than
+fast and ~12x smaller as a traced jaxpr than
 a per-lane formulation — the latter matters because XLA:CPU compile time
 is proportional to graph size (observed minutes vs seconds on small hosts).
 """

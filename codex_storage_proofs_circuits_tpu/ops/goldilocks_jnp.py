@@ -1,8 +1,8 @@
 """Batched Goldilocks arithmetic + hash permutations on 16-bit limb planes.
 
-TPU-native twin of oracle/goldilocks.py.  A felt batch is a uint32 array of
+Batched jnp twin of oracle/goldilocks.py.  A felt batch is a uint32 array of
 shape (4, B): little-endian 16-bit limb planes, batch on the lane axis — the
-same VPU-friendly layout as the BN254 kernels (ops/limbs.py), but Goldilocks
+same layout as the BN254 planes (ops/limbs.py), but Goldilocks
 needs no Montgomery form: p = 2^64 - 2^32 + 1 gives 2^64 ≡ 2^32 - 1 and
 2^96 ≡ -1, so a 128-bit product folds to [0, p) with two cheap 16-bit-plane
 folds.  All products are 16x16->32, exact in uint32.

@@ -10,8 +10,8 @@ Round schedule matches the reference circuit
 driven by lax.scan over stacked round-constant arrays so the traced graph
 stays small (3 scan bodies) regardless of batch size.
 
-This is the portable jax.numpy implementation; poseidon2_pallas.py provides
-the fused TPU kernel with identical semantics.
+This is the portable jax.numpy implementation; the CUDA kernels
+(ops/cuda/lanes.h) compute the same function one lane per thread.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Bit-exact pure-Python CPU oracle (L1-L4).
 
-This is the judge for every accelerated kernel: the TPU (ops/, models/) and
+This is the judge for every accelerated kernel: the device (ops/, models/) and
 native (native/) paths must reproduce these outputs exactly.  Semantics follow
 the reference implementations:
 

@@ -10,7 +10,7 @@ for sampling.  The permutation constants are instantiated per
 fields/goldilocks.py (the upstream nim-goldilocks-hash pin is not vendored
 in the reference; see that module's docstring for provenance).
 
-Everything here is the scalar CPU oracle; the batched TPU kernels live in
+Everything here is the scalar CPU oracle; the batched device kernels live in
 ops/goldilocks_jnp.py and are held bit-exact to this module by tests.
 """
 

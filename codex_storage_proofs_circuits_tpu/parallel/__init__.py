@@ -1,7 +1,7 @@
 """Multi-chip sharding: device meshes and sharded Merkle tree builds.
 
 The reference pipeline is strictly sequential (SURVEY.md section 2c); cell
-sharding across chips with per-layer ICI frontier gathers is this framework's
+sharding across devices with per-layer frontier gathers is this framework's
 native scaling design, not a port.
 """
 

@@ -2,14 +2,15 @@
 
 The reference generator is a single-threaded loop over slots
 (reference/nim/proof_input/src/gen_input/bn254.nim:26-28); SURVEY.md section
-2c makes multi-host execution an explicit TPU-native obligation: slots are
-partitioned across hosts on the DCN-friendly "slots" mesh axis, and each
-slot's cells are sharded across that host's chips on the ICI "cells" axis.
+2c makes multi-host execution an obligation: slots are partitioned across
+hosts on the "slots" mesh axis (only the per-slot roots cross hosts), and
+each slot's cells are sharded across that host's devices on the "cells"
+axis.
 
-Usage on a pod slice (one process per host):
+Usage (one process per host):
 
     from codex_storage_proofs_circuits_tpu.parallel import distributed as D
-    D.initialize()                      # env-driven (TPU pods: automatic)
+    D.initialize("localhost:1234", num_processes=2, process_id=0)
     mesh = D.make_global_mesh()         # slots axis spans hosts
     felts = D.make_global_cell_array(mesh, local_slots, n_slots_padded)
     layers = tree.sharded_dataset_build(felts, mesh, block_tree_depth)
@@ -37,9 +38,10 @@ def initialize(
     """Join (or start) the distributed runtime.
 
     With no arguments, defers to jax.distributed.initialize()'s environment
-    autodetection (TPU pods need nothing else).  For CPU multi-process runs,
-    pass everything explicitly; local_device_count forces that many virtual
-    CPU devices per process and selects the gloo collectives backend.
+    autodetection, which needs a cluster environment that announces itself;
+    elsewhere pass the coordinator and process arguments explicitly.  For
+    CPU multi-process runs local_device_count forces that many virtual CPU
+    devices per process and selects the gloo collectives backend.
     """
     if local_device_count is not None:
         jax.config.update("jax_num_cpu_devices", local_device_count)
@@ -60,8 +62,9 @@ def make_global_mesh(
     """(slots, cells) mesh over all global devices, hosts on the slots axis.
 
     Defaults: slots axis = number of processes (each host owns a slot group,
-    so the per-layer frontier all-gathers of the tree build stay on ICI and
-    only the tiny per-slot roots cross DCN), cells axis = devices per host.
+    so the per-layer frontier all-gathers of the tree build stay within a
+    host and only the tiny per-slot roots cross hosts), cells axis =
+    devices per host.
     jax.devices() orders devices by process index, so a C-order reshape to
     (n_slot_shards, n_cells_shards) keeps each row within one host whenever
     n_cells_shards divides the per-host device count.

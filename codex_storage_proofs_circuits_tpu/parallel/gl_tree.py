@@ -2,7 +2,7 @@
 
 The GL twin of parallel/tree.py (SURVEY.md section 2c): cells shard on the
 "cells" mesh axis, each chip sponges its cells and reduces a local digest
-subtree, the one-digest-per-chip frontier all-gathers over ICI, and the
+subtree, the one-digest-per-chip frontier all-gathers, and the
 replicated top layers + dataset tree finish on every chip.  Digest layers
 are (4 lanes, 4 limbs, W) uint32 planes; the keyed convention and the flat
 cell->block->slot key schedule match models/gl_hashing.py / oracle
@@ -88,7 +88,7 @@ def gl_tree_reduce_general(leaves: jnp.ndarray, hash_fun: str) -> list[jnp.ndarr
 
 
 def _gl_slot_tree_shard_body(f_local, hash_fun: str, block_tree_depth: int, n_local: int):
-    """Per-chip slot-tree body: local digest layers, ICI frontier
+    """Per-chip slot-tree body: local digest layers, frontier
     all-gather, replicated top layers.  Returns (local_layers, top_layers,
     root_digest)."""
     hashes = GH.sponge_digests(hash_fun, f_local)  # (4, 4, w_loc)

@@ -1,10 +1,13 @@
 """Device mesh construction.
 
 Axes:
-  "slots" — dataset slots distributed across chip groups (outer, DCN-friendly:
-            slots are independent until the tiny dataset tree at the top)
-  "cells" — cells/leaves of one slot distributed across the chips of a group
-            (inner, ICI: per-layer frontier gathers ride the fast links)
+  "slots" — dataset slots distributed across device groups (outer: slots
+            are independent until the tiny dataset tree at the top)
+  "cells" — cells/leaves of one slot distributed across the devices of a
+            group (inner: the per-layer frontier gathers)
+
+The cards of one host are joined all to all (NVLink), so a mesh's shape
+follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ slots_axis = "slots"
 def make_mesh(n_cells_shards: int | None = None, n_slot_shards: int = 1, devices=None) -> Mesh:
     """(slots, cells) mesh over the available devices.
 
-    Default: all devices on the cells axis (the hot reduction axis stays on
-    ICI).  n_slot_shards > 1 carves the device list into that many groups.
+    Default: all devices on the cells axis.  n_slot_shards > 1 carves the
+    device list into that many groups.
     """
     if devices is None:
         devices = jax.devices()

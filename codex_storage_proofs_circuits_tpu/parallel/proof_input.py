@@ -12,7 +12,7 @@ the *cell-data gathers* also run on the mesh —
   * path gathers read the *sharded* layer stacks via
     models.hashing.extract_paths_device / models.gl_hashing.
     extract_gl_paths_device under jit: XLA partitions the takes across the
-    "cells" mesh axis (collective gathers over ICI);
+    "cells" mesh axis (collective gathers);
   * sampled cell data gathers from the sharded encoded-cell array the same
     way.
 
@@ -22,9 +22,9 @@ O(nSamples * maxDepth) field elements, independent of slot size.
 
 Bit-exactness vs the sequential oracle (oracle.sampling.generate_proof_input
 / oracle.goldilocks_pipeline.generate_proof_input_gl) is enforced by
-tests/test_parallel_tree.py, tests/test_gl_parallel_tree.py and the driver's
-dryrun_multichip, which also run the witness evaluator on the mesh-built
-bundles.
+tests/test_parallel_tree.py, tests/test_gl_parallel_tree.py and
+__graft_entry__.dryrun_multichip, which also run the witness evaluator on
+the mesh-built bundles.
 """
 
 from __future__ import annotations
@@ -39,11 +39,10 @@ from jax.sharding import Mesh
 from ..fields import bn254
 from ..ops import limbs as L
 from ..ops import poseidon2_jnp as P2
-from ..ops import goldilocks_jnp as GJ
 from ..ops.encode import encode_cells
 from ..models import hashing as H
 from ..models import data as D
-from ..models.gl_hashing import encode_cells_gl, extract_gl_paths_device
+from ..models.gl_hashing import encode_cells_gl, extract_gl_paths_device, sponge_digests
 from ..oracle.merkle import MerkleTree, extract_proof
 from ..oracle.sampling import ProofInput
 from ..oracle.dataset import GlobalConfig, DataSetConfig, slot_cfg_from_dataset_cfg
@@ -70,9 +69,9 @@ def _sample_indices_dev(entropy_mont, counters_mont, root_std, log2n: int):
     squeezed lane's standard form (extractLowBits, types/bn254.nim:47-59).
     """
     s = counters_mont.shape[1]
-    root_mont = L.to_mont(root_std[:, None])  # (NL, 1)
+    root_mont = H.to_mont(root_std[:, None])  # (NL, 1)
     iv = jnp.asarray(P2.SPONGE2_IV_MONT)
-    st1 = P2.permutation(
+    st1 = H.permute(
         jnp.stack([jnp.broadcast_to(entropy_mont, (NL, 1)), root_mont, iv])
     )
     one_mont = jnp.asarray(P2.KEY_MONT[1])  # mont(1): the 10* padding felt
@@ -81,7 +80,7 @@ def _sample_indices_dev(entropy_mont, counters_mont, root_std, log2n: int):
         jnp.broadcast_to(st1[1], (NL, s)), jnp.broadcast_to(one_mont, (NL, s))
     )
     z = jnp.broadcast_to(st1[2], (NL, s))
-    h = L.from_mont(P2.permutation(jnp.stack([x, y, z]))[0])  # (NL, S) canonical
+    h = H.from_mont(H.permute(jnp.stack([x, y, z]))[0])  # (NL, S) canonical
     assert log2n <= 32
     idx = (h[0] | (h[1] << 16)) & jnp.uint32((1 << log2n) - 1)
     return idx.astype(jnp.int32)
@@ -187,7 +186,7 @@ def _sample_indices_dev_gl(hash_fun: str, entropy_d, counters_f, root_d, log2n: 
         ],
         axis=0,
     )  # (12, 4, S)
-    h = GJ.sponge_digest_felts(hash_fun, felts)  # (4, 4, S)
+    h = sponge_digests(hash_fun, felts)  # (4, 4, S)
     assert log2n <= 32
     idx = (h[0, 0] | (h[0, 1] << 16)) & jnp.uint32((1 << log2n) - 1)
     return idx.astype(jnp.int32)

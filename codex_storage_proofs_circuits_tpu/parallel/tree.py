@@ -1,13 +1,12 @@
 """Sharded Merkle tree builds over a device mesh (shard_map + collectives).
 
-Design (SURVEY.md section 2c, a TPU-native obligation — the reference is
-sequential):
+Design (SURVEY.md section 2c; the reference is sequential):
 
   * cells (tree leaves) are sharded on the lane axis across the "cells" mesh
     axis; every chip hashes its cells and reduces its local subtree with the
     batched compression kernel, entirely on-chip;
   * once a layer reaches one node per chip, the frontier (one node per chip)
-    is all-gathered over ICI and the remaining log2(n_chips) layers are
+    is all-gathered and the remaining log2(n_chips) layers are
     computed replicated on every chip — O(n_chips) felts of communication
     total, off the critical path;
   * independent slots shard over the outer "slots" axis; their roots gather
@@ -53,7 +52,7 @@ def _local_layers(felts_local: jnp.ndarray, block_tree_depth: int) -> list[jnp.n
 
 def _slot_tree_shard_body(f_local, block_tree_depth: int, n_local: int):
     """Per-chip slot-tree body shared by the single-slot and dataset builds:
-    local subtree layers, ICI frontier all-gather, replicated top layers.
+    local subtree layers, frontier all-gather, replicated top layers.
 
     Returns (local_layers_canonical, top_layers_canonical, root_mont)."""
     layers = _local_layers(f_local, block_tree_depth)
@@ -62,8 +61,8 @@ def _slot_tree_shard_body(f_local, block_tree_depth: int, n_local: int):
         frontier, bottom_depths=(0, block_tree_depth), depth_offset=n_local
     )
     return (
-        tuple(L.from_mont(x) for x in layers[:-1]),
-        tuple(L.from_mont(x) for x in tops),
+        tuple(H.from_mont(x) for x in layers[:-1]),
+        tuple(H.from_mont(x) for x in tops),
         tops[-1][:, 0],
     )
 
@@ -133,7 +132,7 @@ def _dataset_build_jit(felts_all, mesh, block_tree_depth: int, n_slots: int):
             roots_mont, slots_axis, axis=0, tiled=True
         )  # (n_slots_padded, NL) replicated
         dset_layers = H.tree_reduce_general(all_roots[:n_slots].T)
-        return (locs, tops, tuple(L.from_mont(x) for x in dset_layers))
+        return (locs, tops, tuple(H.from_mont(x) for x in dset_layers))
 
     in_spec = P(slots_axis, None, None, cells_axis)
     return shard_map(

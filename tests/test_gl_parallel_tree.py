@@ -1,5 +1,5 @@
 """Sharded Goldilocks tree builds on the 8-virtual-device CPU mesh vs the
-GL oracle (VERDICT round-1 item 8: GL device-pipeline parity on the mesh,
+GL oracle (GL device-pipeline parity on the mesh,
 like tests/test_parallel_tree.py for BN254)."""
 
 import numpy as np
@@ -89,7 +89,7 @@ def test_sharded_gl_dataset_build_matches_oracle(mesh_2x4):
 def test_sharded_gl_proof_input_matches_oracle(mesh_2x4):
     """Full GL mesh pipeline: sharded build -> on-device sampling ->
     collective path/cell gathers -> ProofInputGL; bit-exact vs the oracle
-    and accepted by the GL semantics checker (VERDICT r3 #4)."""
+    and accepted by the GL semantics checker."""
     from codex_storage_proofs_circuits_tpu.parallel import sharded_gl_proof_input
     from codex_storage_proofs_circuits_tpu.oracle.goldilocks_pipeline import (
         check_proof_input_gl,

@@ -2,7 +2,7 @@
 
 The upstream nim-goldilocks-hash pin is not vendored in the reference, so
 there are no external vectors to freeze (see fields/goldilocks.py); these
-tests hold the batched TPU kernels (ops/goldilocks_jnp.py) bit-exact to the
+tests hold the batched device kernels (ops/goldilocks_jnp.py) bit-exact to the
 scalar oracle (oracle/goldilocks.py) and exercise the full digest pipeline.
 """
 

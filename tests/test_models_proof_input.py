@@ -1,4 +1,4 @@
-"""End-to-end proof-input generation: TPU path vs oracle, circuit semantics,
+"""End-to-end proof-input generation: device path vs oracle, circuit semantics,
 JSON round-trip, CLI."""
 
 import json
@@ -8,7 +8,7 @@ import pytest
 from codex_storage_proofs_circuits_tpu.oracle.slot import DataSource
 from codex_storage_proofs_circuits_tpu.oracle.dataset import GlobalConfig, DataSetConfig
 from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input
-from codex_storage_proofs_circuits_tpu.models.proof_input import generate_proof_input_tpu
+from codex_storage_proofs_circuits_tpu.models.proof_input import generate_proof_input_device
 from codex_storage_proofs_circuits_tpu.models.circuit import (
     CircuitCheckError,
     check_circuit_semantics,
@@ -24,11 +24,11 @@ ENTROPY = 1234567
 @pytest.fixture(scope="module")
 def pis():
     oracle_pi = generate_proof_input(GLOB, DSET, 1, ENTROPY)
-    tpu_pi = generate_proof_input_tpu(GLOB, DSET, 1, ENTROPY)
-    return oracle_pi, tpu_pi
+    dev_pi = generate_proof_input_device(GLOB, DSET, 1, ENTROPY)
+    return oracle_pi, dev_pi
 
 
-def test_tpu_proof_input_matches_oracle(pis):
+def test_device_proof_input_matches_oracle(pis):
     o, t = pis
     assert o == t
 
@@ -93,7 +93,7 @@ def test_cli_end_to_end(tmp_path):
     rc = main([
         "--depth=16", "--maxslots=16", "--cellsize=64", "--blocksize=256",
         "--nslots=3", "--ncells=16", "--nsamples=3", "--seed=12345",
-        "--entropy=1234567", "--index=1", "--backend=tpu", "--check",
+        "--entropy=1234567", "--index=1", "--backend=device", "--check",
         "--field=bn254", f"--output={out}", f"--circom={circ}",
     ])
     assert rc == 0

@@ -1,8 +1,7 @@
 """Batched Poseidon2 (jnp path) vs the scalar oracle.
 
-Small canonical batch (B=16) to bound the one-time XLA compile; the Pallas
-TPU kernel shares the same limb algebra and is exercised on TPU hardware by
-bench.py / tools/tpu_verify.py (Mosaic cannot target CPU).
+Small canonical batch (B=16) to bound the one-time XLA compile; the CUDA
+kernel is checked against this path in tests/test_kernels.py.
 """
 
 import random

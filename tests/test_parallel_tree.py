@@ -88,7 +88,7 @@ def test_sharded_dataset_build_matches_oracle(eight_devices):
 def test_sharded_proof_input_matches_oracle(eight_devices):
     """Full mesh pipeline: sharded dataset build -> on-device sampling ->
     collective path/cell gathers -> ProofInput; bit-exact vs the sequential
-    oracle AND accepted by the witness evaluator (VERDICT r3 #4)."""
+    oracle AND accepted by the witness evaluator."""
     from codex_storage_proofs_circuits_tpu.parallel import sharded_proof_input
     from codex_storage_proofs_circuits_tpu.oracle.sampling import generate_proof_input
     from codex_storage_proofs_circuits_tpu.models.witness import (

@@ -1,5 +1,5 @@
 """Independent anchoring of protocol constants against the reference circuit
-source (VERDICT round 1: the frozen vector suites are generated by this
+source (the frozen vector suites are generated by this
 repo's own oracle — only the permutation KAT was externally anchored).
 
 These tests parse /root/reference's circom sources directly (hex literals of

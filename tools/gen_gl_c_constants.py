@@ -1,7 +1,7 @@
 """Emit the Goldilocks hash-instance constants as a C header.
 
 Writes codex_storage_proofs_circuits_tpu/native/gl_constants.h from
-fields/goldilocks.py (same tables as the oracle and the TPU kernels).
+fields/goldilocks.py (same tables as the oracle and the device kernels).
 Values are plain uint64 residues (< p) — Goldilocks needs no Montgomery
 form in the C path (native u128 products).
 """
@@ -26,6 +26,11 @@ def main() -> None:
         "/* generated by tools/gen_gl_c_constants.py — do not edit */",
         "#pragma once",
         "#include <stdint.h>",
+        '/* storage of the tables: plain C by default; the CUDA build puts them in',
+        ' * __constant__ memory (ops/cuda/lanes.h) */',
+        '#ifndef CSPC_CONST',
+        '#define CSPC_CONST static const',
+        '#endif',
         "",
         f"#define GL_P 0x{G.P_GL:016x}ULL",
         f"#define GL_SPONGE_IV 0x{SPONGE_IV_GL:016x}ULL",
@@ -36,30 +41,30 @@ def main() -> None:
         f"#define GL_MONO_ROUNDS {G.MONOLITH_ROUNDS}",
         f"#define GL_MONO_BARS {G.MONOLITH_BARS}",
         "",
-        "static const uint64_t GL_EXT_RC[GL_RF][GL_T] = {",
+        "CSPC_CONST uint64_t GL_EXT_RC[GL_RF][GL_T] = {",
     ]
     for row in G.P2GL_EXTERNAL_RC:
         lines.append("  {" + ", ".join(f"0x{v:016x}ULL" for v in row) + "},")
     lines.append("};")
     lines.append("")
-    lines.append("static const uint64_t GL_INT_RC[GL_RP] = {")
+    lines.append("CSPC_CONST uint64_t GL_INT_RC[GL_RP] = {")
     lines.append("  " + ", ".join(f"0x{v:016x}ULL" for v in G.P2GL_INTERNAL_RC))
     lines.append("};")
     lines.append("")
-    lines.append("static const uint64_t GL_DIAG_M1[GL_T] = {")
+    lines.append("CSPC_CONST uint64_t GL_DIAG_M1[GL_T] = {")
     lines.append(
         "  "
         + ", ".join(f"0x{(v - 1) % G.P_GL:016x}ULL" for v in G.P2GL_INTERNAL_DIAG)
     )
     lines.append("};")
     lines.append("")
-    lines.append("static const uint64_t GL_MONO_RC[GL_MONO_ROUNDS][GL_T] = {")
+    lines.append("CSPC_CONST uint64_t GL_MONO_RC[GL_MONO_ROUNDS][GL_T] = {")
     for row in G.MONOLITH_RC:
         lines.append("  {" + ", ".join(f"0x{v:016x}ULL" for v in row) + "},")
     lines.append("};")
     lines.append("")
     lines.append("/* Monolith Concrete (Plonky2-compatible MDS) full matrix */")
-    lines.append("static const uint64_t GL_MONO_CONCRETE[GL_T][GL_T] = {")
+    lines.append("CSPC_CONST uint64_t GL_MONO_CONCRETE[GL_T][GL_T] = {")
     for row in G.MONOLITH_CONCRETE:
         lines.append("  {" + ", ".join(f"{v}ULL" for v in row) + "},")
     lines.append("};")

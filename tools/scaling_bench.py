@@ -2,17 +2,17 @@
 
 Runs the full sharded (slots x cells) dataset build over meshes of
 increasing device count and reports wall-clock + parallel efficiency vs the
-1-device run, for both fields.  On a real pod slice this measures ICI/DCN
-scaling (the BASELINE.json >=85% target); on a CPU host it exercises the
-identical SPMD programs over virtual devices (mechanism check, not a
-hardware claim — XLA:CPU executes virtual devices on a thread pool, so
-efficiency also reflects host core count).
+1-device run, for both fields.  On several GPUs this measures scaling over
+the cards' links; on a CPU host it exercises the identical SPMD programs
+over virtual devices (mechanism check, not a hardware claim — XLA:CPU
+executes virtual devices on a thread pool, so efficiency also reflects host
+core count).
 
 Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      python tools/scaling_bench.py [--cells 4096] [--slots 4]
+      python tools/scaling_bench.py --out scaling.json [--cells 4096] [--slots 4]
 
-Writes a JSON line per mesh size and a summary to scaling_metrics.json.
+Prints a JSON line per mesh size and writes a summary to --out.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ def main() -> int:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cell-size", type=int, default=256)
     ap.add_argument("--field", choices=["bn254", "goldilocks", "both"], default="both")
+    ap.add_argument("--out", required=True, help="summary JSON file")
     args = ap.parse_args()
 
     import jax
@@ -133,10 +134,9 @@ def main() -> int:
     if jax.default_backend() == "cpu":
         caveat = (
             "virtual CPU devices share one host's cores: these numbers are a "
-            "mechanism check of the SPMD programs, NOT evidence for or "
-            "against the >=85% ICI-scaling target (single-chip environment)"
+            "mechanism check of the SPMD programs, not a scaling measurement"
         )
-    with open(os.path.join(os.path.dirname(__file__), "..", "scaling_metrics.json"), "w") as f:
+    with open(args.out, "w") as f:
         json.dump(
             {"backend": jax.default_backend(), "caveat": caveat, "results": results},
             f,

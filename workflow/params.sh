@@ -18,4 +18,4 @@
 
 : "${FIELD:=bn254}"        # bn254 | goldilocks
 : "${HASH:=poseidon2}"     # poseidon2 | monolith
-: "${BACKEND:=tpu}"        # oracle | tpu | native
+: "${BACKEND:=device}"     # oracle | device | native

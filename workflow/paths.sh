@@ -2,7 +2,7 @@
 # Paths for the proving workflow (reference workflow/paths.sh).
 #
 # CIRCUIT_ROOT must point at a checkout of the upstream circom circuits
-# (codex-storage-proofs-circuits/circuit); the TPU framework generates the
+# (codex-storage-proofs-circuits/circuit); this framework generates the
 # main component and the proof input, the circuits themselves remain the
 # interop target.  Defaults probe the usual locations.
 

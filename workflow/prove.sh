@@ -1,11 +1,11 @@
 #!/bin/bash
 # Proof-input -> witness -> proof -> verify (reference workflow/prove.sh:13-87).
 #
-# The proof input is generated by the TPU pipeline; witness generation and
+# The proof input is generated by the device pipeline; witness generation and
 # proving dispatch to whatever external tools are installed.  When none are,
 # the script still validates the generated input end-to-end against the
 # framework's own witness-level circuit evaluator (--check), which re-derives
-# every circuit `===` assertion — the TPU-native replacement for a dry-run
+# every circuit `===` assertion — the device-side replacement for a dry-run
 # witness generation.
 set -e
 MY_DIR=$( cd -- "$( dirname -- "${BASH_SOURCE[0]}" )" &> /dev/null && pwd )
@@ -15,7 +15,7 @@ source "${MY_DIR}/cli_args.sh"
 mkdir -p "$BUILD_DIR"
 cd "$BUILD_DIR"
 
-# --- generate the proof input (TPU pipeline) + self-check ---
+# --- generate the proof input (device pipeline) + self-check ---
 echo "generating the proof input..."
 $CSPC_CLI $CLI_ARGS -v --output=input.json --check
 

@@ -3,7 +3,7 @@
 #
 # Every external stage degrades gracefully: missing tools are reported and
 # skipped, so the script is usable both on a full proving host (circom +
-# snarkjs installed) and on a bare TPU host (main-component emission only).
+# snarkjs installed) and on a bare device host (main-component emission only).
 set -e
 MY_DIR=$( cd -- "$( dirname -- "${BASH_SOURCE[0]}" )" &> /dev/null && pwd )
 source "${MY_DIR}/paths.sh"
